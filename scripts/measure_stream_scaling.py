@@ -1,4 +1,4 @@
-"""Measure realtime stream-count scaling on the real TPU.
+"""Measure realtime stream-count scaling on the accelerator.
 
 For each stream count, drives the realtime engine wall-clock-paced
 (``simulate(..., realtime=True)``) so overload shows up as shed chunks /
@@ -9,7 +9,7 @@ Prints one JSON line per stream count:
   {"streams": N, "realtime_factor": ..., "throughput_factor": ...,
    "shed_chunks": ..., "dropped_frames": ..., "coverage": ...}
 
-Run from the repo root on the real TPU: python scripts/measure_stream_scaling.py
+Run from the repo root: python scripts/measure_stream_scaling.py
 """
 import asyncio
 import json

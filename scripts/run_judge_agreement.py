@@ -25,7 +25,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from vidgraph_tpu.core.config import PipelineConfig  # noqa: E402
+from vidgraph_tpu.core.config import IN_PROCESS, PipelineConfig  # noqa: E402
 from vidgraph_tpu.pipeline.benchmark import BenchmarkEvaluator  # noqa: E402
 
 
@@ -43,7 +43,7 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg_llm = PipelineConfig.from_yaml(args.config)
-    assert cfg_llm.benchmark_llm.judge_backend == "tpu", (
+    assert cfg_llm.benchmark_llm.judge_backend == IN_PROCESS, (
         "config must pin benchmark_llm.judge_backend: tpu")
     cfg_strict = copy.deepcopy(cfg_llm)
     cfg_strict.benchmark_llm.judge_backend = "local"

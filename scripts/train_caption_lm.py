@@ -19,16 +19,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 from pathlib import Path
 
 import numpy as np
 
 import jax
-
-if os.environ.get("VIDGRAPH_FORCE_CPU"):
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import optax

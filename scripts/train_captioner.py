@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Train the on-device captioner on synthetic scenes.
 
-Bootstraps real weights for the TPU captioning path with zero external
+Bootstraps real weights for the in-process captioning path with zero external
 data: synthetic colored-shape clips are captioned by the deterministic
 LocalVLM (frame statistics -> text), and the ViT+captioner stack learns to
 reproduce those captions from pixels.  Produces an .npz checkpoint loadable
@@ -53,13 +53,9 @@ def main() -> None:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--max-len", type=int, default=96)
     ap.add_argument("--out", default="checkpoints/captioner_tiny.npz")
-    ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
 
     import jax
-
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from vidgraph_tpu.models.captioner import CaptionerConfig, generate

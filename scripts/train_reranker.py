@@ -9,7 +9,7 @@ chunks.  Listwise softmax over each (1 positive + K negatives) group.
 Held-out eval reports top-1 accuracy and MRR against the embedding-cosine
 baseline — the signal the trained model must beat to justify existing.
 
-Usage (real TPU, ~3 min at defaults):
+Usage (on the accelerator):
   python scripts/train_reranker.py \
       --corpus /root/reference/data/outputs/vlm_output.json \
       --steps 2000 --out checkpoints/reranker.npz
@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import random
 import re
 import time
@@ -27,9 +26,6 @@ from pathlib import Path
 import numpy as np
 
 import jax
-
-if os.environ.get("VIDGRAPH_FORCE_CPU"):
-    jax.config.update("jax_platforms", "cpu")
 
 import sys
 

@@ -29,12 +29,8 @@ from pathlib import Path
 
 import numpy as np
 
-import os
 
 import jax
-
-if os.environ.get("VIDGRAPH_FORCE_CPU"):  # tests; the PJRT plugin ignores
-    jax.config.update("jax_platforms", "cpu")  # plain JAX_PLATFORMS env
 
 import jax.numpy as jnp
 import optax

@@ -57,7 +57,7 @@ def test_bf16_storage_matches_f32_numerics():
 
 def test_large_tp_shardings_divide_mesh():
     """Every large-model weight must shard evenly over an 8-way model
-    axis (the v5e-8 serving scenario); shard_shape raises otherwise."""
+    axis (an 8-device serving mesh); shard_shape raises otherwise."""
     from vidgraph_tpu.models.train import captioner_shardings
     from vidgraph_tpu.parallel.mesh import build_mesh
 

@@ -1,5 +1,7 @@
 import json
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -199,17 +201,20 @@ def test_export_import_roundtrip(tmp_path):
 
 
 def test_import_reference_export_artifact(tmp_path):
-    """The committed reference export must import cleanly (594 nodes,
-    1677 rels incl. FROM_CHUNK with null to_node, which we tolerate)."""
-    path = ("/root/reference/data/exports/"
-            "mvp_93e9c82e-95d6-4864-8ac1-2ae70edfd961.json")
+    """An export in the reference's schema must import cleanly: nameless
+    nodes are skipped, FROM_CHUNK and typed rels with a null to_node are
+    tolerated, and graph_uuid never leaks into rel properties."""
+    path = Path(__file__).parent / "golden" / "reference_export_small.json"
     uuid = GraphImporter(
         lambda u: EmbeddedGraphStore(u, persist_dir=str(tmp_path))
-    ).import_graph(path, new_uuid="refimp")
+    ).import_graph(str(path), new_uuid="refimp")
+    assert uuid == "refimp"
     s = EmbeddedGraphStore("refimp", persist_dir=str(tmp_path))
-    assert len(s.entities) == 268
-    assert len(s.chunks) == 326
-    assert len(s.rels) > 400   # typed rels (export had 495 typed)
+    assert len(s.entities) == 12
+    assert len(s.chunks) == 8
+    assert len(s.rels) == 20
+    assert len(s.from_chunk) == 8
+    assert all("graph_uuid" not in p for p in s.rels.values())
     ents = s.fulltext_search_entities("gloves person", top_k=5)
     assert ents
 

@@ -1,7 +1,7 @@
 """Serving-path mesh wiring (VERDICT r2 item 1): the product modules —
 graph store vector search, hybrid retrieval, realtime engine memories,
-TPU model clients — must route through the mesh when one is active, and
-produce results identical to single-device serving.
+in-process model clients — must route through the mesh when one is
+active, and produce results identical to single-device serving.
 
 Runs on the 8-virtual-CPU-device mesh (conftest).
 """

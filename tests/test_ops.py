@@ -5,7 +5,6 @@ import pytest
 
 from vidgraph_tpu.ops import (cosine_scores, cosine_topk, l2_normalize,
                               patchify, preprocess_frames)
-from vidgraph_tpu.ops.topk_cosine import _jnp_scores, _pallas_scores
 
 
 def _ref_cosine(q, s):
@@ -18,20 +17,8 @@ def test_cosine_scores_matches_numpy():
     q = rng.normal(size=(3, 64)).astype(np.float32)
     s = rng.normal(size=(50, 64)).astype(np.float32)
     s = s / np.linalg.norm(s, axis=-1, keepdims=True)
-    got = np.asarray(cosine_scores(jnp.asarray(q), jnp.asarray(s),
-                                   use_pallas=False))
+    got = np.asarray(cosine_scores(jnp.asarray(q), jnp.asarray(s)))
     np.testing.assert_allclose(got, _ref_cosine(q, s), rtol=1e-5, atol=1e-5)
-
-
-def test_pallas_scores_interpret_matches_jnp():
-    rng = np.random.default_rng(1)
-    q = rng.normal(size=(2, 128)).astype(np.float32)
-    s = rng.normal(size=(256, 128)).astype(np.float32)
-    s = s / np.linalg.norm(s, axis=-1, keepdims=True)
-    ref = np.asarray(_jnp_scores(jnp.asarray(q), jnp.asarray(s)))
-    got = np.asarray(_pallas_scores(jnp.asarray(q), jnp.asarray(s),
-                                    interpret=True))
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
 def test_cosine_topk_masks_invalid():
@@ -39,7 +26,7 @@ def test_cosine_topk_masks_invalid():
     s = l2_normalize(jnp.eye(8, dtype=jnp.float32)[:4])
     store = jnp.zeros((8, 8), jnp.float32).at[:4].set(s)
     valid = jnp.arange(8) < 4
-    vals, idx = cosine_topk(q, store, k=6, valid=valid, use_pallas=False)
+    vals, idx = cosine_topk(q, store, k=6, valid=valid)
     vals, idx = np.asarray(vals), np.asarray(idx)
     assert (idx[0, :4] < 4).all()
     assert (vals[0, 4:] <= -1e29).all()
@@ -48,7 +35,7 @@ def test_cosine_topk_masks_invalid():
 def test_cosine_topk_empty_store():
     q = jnp.ones((2, 8), jnp.float32)
     s = jnp.zeros((0, 8), jnp.float32)
-    vals, idx = cosine_topk(q, s, k=3, use_pallas=False)
+    vals, idx = cosine_topk(q, s, k=3)
     assert vals.shape == (2, 3) and idx.shape == (2, 3)
     assert (np.asarray(vals) <= -1e29).all()
 
@@ -101,3 +88,26 @@ def test_preprocess_fast_matches_exact_within_tolerance():
     # stay within a few percent of that range
     assert np.abs(exact - fast).mean() < 0.1
     assert np.abs(exact - fast).max() < 0.6
+
+
+@pytest.mark.parametrize("n", [1000, 65535, 65536, 70000])
+@pytest.mark.parametrize("b", [1, 5])
+def test_cosine_topk_matches_numpy_across_two_stage(n, b):
+    """One-stage and two-stage top-k agree with numpy around
+    ``_TWO_STAGE_MIN``, with a first-N-rows-valid count."""
+    from vidgraph_tpu.ops import topk_cosine
+
+    assert topk_cosine._TWO_STAGE_MIN == 65536
+    rng = np.random.default_rng(n + b)
+    s = rng.normal(size=(n, 16)).astype(np.float32)
+    s /= np.linalg.norm(s, axis=1, keepdims=True)
+    q = rng.normal(size=(b, 16)).astype(np.float32)
+    count = n - 37
+    vals, idx = cosine_topk(jnp.asarray(q), jnp.asarray(s), k=7,
+                            valid_count=count)
+    ref = _ref_cosine(q.astype(np.float64), s[:count].astype(np.float64))
+    want = np.argsort(-ref, axis=1)[:, :7]
+    np.testing.assert_allclose(np.asarray(vals),
+                               np.take_along_axis(ref, want, 1), atol=1e-5)
+    assert (np.asarray(idx) < count).all()
+    np.testing.assert_array_equal(np.asarray(idx), want)

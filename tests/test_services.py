@@ -1,5 +1,5 @@
-"""Service-client tests: TPU captioner batching, HTTP clients against mock
-transports, profiling helpers."""
+"""Service-client tests: in-process captioner batching, HTTP clients
+against mock transports, profiling helpers."""
 import asyncio
 import json
 
@@ -33,7 +33,8 @@ def test_tpu_captioner_batch_matches_single():
 
 def test_preprocess_mode_pins_resize_path(monkeypatch):
     """ADVICE r2: numerics must not silently depend on cv2 availability.
-    'device' never host-resizes even for large frames; 'host' always does
+    'device' and 'auto' never host-resize even for large frames; 'host'
+    always does
     (and errors without cv2); fast_resize=False runs the exact f32 path."""
     from vidgraph_tpu.models.captioner import CaptionerConfig
     from vidgraph_tpu.models.vit import ViTConfig
@@ -58,6 +59,8 @@ def test_preprocess_mode_pins_resize_path(monkeypatch):
     monkeypatch.setattr(cv2, "resize", spy)
     out = make(preprocess="device").caption_batch_sync([chunk])
     assert out and not calls                 # device mode: cv2 untouched
+    out = make(preprocess="auto").caption_batch_sync([chunk])
+    assert out and not calls                 # auto == device, cv2 or not
 
     out = make(preprocess="host").caption_batch_sync([chunk])
     assert out and calls                     # host mode: cv2 used

@@ -1,31 +1,81 @@
-"""Typed configuration tree (YAML -> pydantic).
+"""Typed configuration tree (YAML -> dataclasses).
 
 Mirrors the reference's config surface (reference: src/core/config.py:5-114 and
 config/base_config.yaml) so that reference YAML files load unchanged, and adds
-TPU-native sections (``backend``, ``mesh``, ``graph_store``, ``acs``) that have
-safe offline defaults.  Unknown keys are tolerated (the reference relied on
-pydantic-v1 ``parse_obj`` leniency, e.g. ``max_connection_subgraph`` —
-reference: src/components/pre_llm_injector.py:454).
+sections of its own (``backend``, ``mesh``, ``graph_store``, ``acs``) that have
+safe offline defaults.  Unknown keys are tolerated and kept as attributes (the
+reference relied on pydantic-v1 ``parse_obj`` leniency, e.g.
+``max_connection_subgraph`` — reference:
+src/components/pre_llm_injector.py:454).
+PyYAML is needed only by :meth:`PipelineConfig.from_yaml`.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Any, Dict, List, Optional
 
-import yaml
-from pydantic import BaseModel, ConfigDict
+
+def _coerce(default: Any, value: Any) -> Any:
+    """Light type coercion toward the field's default (YAML ints into
+    float fields, nested dicts into sections)."""
+    if isinstance(default, _Section):
+        return type(default).from_dict(value or {})
+    if isinstance(default, float) and isinstance(value, int) \
+            and not isinstance(value, bool):
+        return float(value)
+    return value
 
 
-class _Model(BaseModel):
-    model_config = ConfigDict(extra="allow")
+class _Section:
+    """Base of every config section: a dataclass that accepts unknown keys
+    (kept as plain attributes) and round-trips through dicts."""
+
+    @classmethod
+    def from_dict(cls, raw: Dict[str, Any]):
+        if isinstance(raw, _Section):
+            return raw
+        if not isinstance(raw, dict):
+            raise TypeError(f"{cls.__name__} expects a mapping, "
+                            f"got {type(raw).__name__}")
+        obj = cls()
+        names = {f.name for f in dataclasses.fields(cls)}
+        for key, value in raw.items():
+            if key in names:
+                value = _coerce(getattr(obj, key), value)
+            setattr(obj, key, value)
+        return obj
+
+    def to_dict(self) -> Dict[str, Any]:
+        out = {}
+        for key, value in vars(self).items():
+            out[key] = value.to_dict() if isinstance(value, _Section) \
+                else value
+        return out
 
 
-class VideoConfig(_Model):
+def _section(cls):
+    """Declare a config section: a dataclass whose mutable defaults (lists,
+    nested sections) are built per instance."""
+    for name, value in list(cls.__dict__.items()):
+        if name.startswith("_") or callable(value) \
+                or isinstance(value, (classmethod, staticmethod, property)):
+            continue
+        if isinstance(value, (list, dict, _Section)):
+            setattr(cls, name, dataclasses.field(
+                default_factory=lambda v=value: copy.deepcopy(v)))
+    return dataclasses.dataclass(cls)
+
+
+@_section
+class VideoConfig(_Section):
     chunk_size_seconds: float = 5.0
     frames_per_chunk: int = 5
     fps_target: Optional[float] = None
 
 
-class VLMConfig(_Model):
+@_section
+class VLMConfig(_Section):
     endpoint: str = "http://localhost:8078/v1"
     api_key: str = ""
     model_name: str = "qwen-vlm"
@@ -38,18 +88,18 @@ class VLMConfig(_Model):
     user_prompt_template: str = (
         "Describe what's happening in these frames from a video."
     )
-    # TPU-backend preprocessing numerics (ADVICE r2: pin them so the same
-    # video embeds identically across deployments).  preprocess: "auto"
-    # host-resizes large frames when cv2 is importable; "host" always
-    # host-resizes (errors without cv2); "device" always resizes on device.
+    # In-process preprocessing numerics (pinned so the same video embeds
+    # identically across deployments).  preprocess: "auto" and "device"
+    # resize on the device; "host" resizes with cv2 (errors without it).
     preprocess: str = "auto"   # auto | host | device
     fast_resize: bool = True   # bf16 separable resize vs exact f32
     # weight-only int8 serving for the captioner (models/quant8.py):
-    # None | "int8" (bf16 activations) | "int8_a8" (int8 MXU dot)
+    # None | "int8" (bf16 activations) | "int8_a8" (int8 x int8 dot)
     quantize: Optional[str] = None
 
 
-class LLMInjectorConfig(_Model):
+@_section
+class LLMInjectorConfig(_Section):
     endpoint: str = "http://localhost:8078/v1"
     api_key: str = ""
     model_name: str = "qwen-vlm"
@@ -71,14 +121,18 @@ class LLMInjectorConfig(_Model):
     subgraph_extraction_injection: bool = False
 
 
-class ChunkingConfig(_Model):
+@_section
+class ChunkingConfig(_Section):
     enabled: bool = True
     chunk_size: int = 296
     chunk_overlap: int = 16
-    # 'token' reproduces the reference's TokenTextSplitter boundaries
-    # (tiktoken when available, calibrated estimator otherwise);
+    # 'token' reproduces the reference's TokenTextSplitter boundaries;
     # 'word' is the round-1 word-window fallback.
     splitter: str = "token"
+    # token encoder of the 'token' splitter: 'estimator' (calibrated,
+    # dependency-free) or 'tiktoken' (exact cl100k_base; needs the
+    # optional package and its cached encoding file)
+    token_encoder: str = "estimator"
     max_triplets_per_chunk: int = 6
     use_sentence_boundaries: bool = True
     parallel_count: int = 2
@@ -95,7 +149,8 @@ class ChunkingConfig(_Model):
     max_connection_subgraph: int = 2
 
 
-class KGConfig(_Model):
+@_section
+class KGConfig(_Section):
     batch_size: int = 3
     verbose: bool = False
     embedding_endpoint: str = "http://localhost:8071/v1"
@@ -103,7 +158,8 @@ class KGConfig(_Model):
     embedding_api_key: str = ""
 
 
-class EmbedderConfig(_Model):
+@_section
+class EmbedderConfig(_Section):
     endpoint: str = "http://localhost:8071/v1"
     api_key: str = ""
     model: str = "qwen-embedding"
@@ -114,14 +170,16 @@ class EmbedderConfig(_Model):
     top_k_similar_batch: int = 2
 
 
-class Neo4jConfig(_Model):
+@_section
+class Neo4jConfig(_Section):
     uri: str = "bolt://localhost:7687"
     user: str = "neo4j"
     password: str = "password"
     database: str = "neo4j"
 
 
-class RetrievalConfig(_Model):
+@_section
+class RetrievalConfig(_Section):
     use_reranker: bool = True
     reranker_endpoint: str = "http://localhost:8070/v1/rerank"
     reranker_api_key: str = ""
@@ -149,7 +207,8 @@ class RetrievalConfig(_Model):
     rerank_relationships: bool = True
 
 
-class BenchmarkLLMConfig(_Model):
+@_section
+class BenchmarkLLMConfig(_Section):
     endpoint: str = "http://localhost:8078/v1"
     api_key: str = ""
     model_name: str = "qwen-vlm"
@@ -164,15 +223,22 @@ class BenchmarkLLMConfig(_Model):
     judge_backend: str = ""
 
 
+#: ``backend`` value for a model served in-process by JAX on the local
+#: device(s).  The name predates the GPU; it is kept so existing YAML loads.
+IN_PROCESS = "tpu"
+
+
 # ---------------------------------------------------------------------------
-# TPU-native sections (new in this framework; absent from reference YAMLs, so
-# every field has an offline-safe default).
+# Sections new in this framework (absent from reference YAMLs, so every field
+# has an offline-safe default).
 # ---------------------------------------------------------------------------
 
-class BackendConfig(_Model):
+@_section
+class BackendConfig(_Section):
     """Which implementation serves each model role.
 
-    ``tpu``   — in-process JAX model on the local device(s)
+    ``tpu``   — in-process JAX model on the local device(s) (the name
+                predates the GPU; it means "in-process JAX")
     ``http``  — OpenAI-compatible HTTP endpoint (reference behaviour)
     ``local`` — deterministic, dependency-free fallback (tests / offline)
     """
@@ -183,7 +249,8 @@ class BackendConfig(_Model):
     reranker: str = "tpu"     # rerank: tpu | http | none
 
 
-class MeshConfig(_Model):
+@_section
+class MeshConfig(_Section):
     # "auto" builds a serving mesh iff >1 JAX device is visible;
     # true/false force it on/off.  When active, embedding memories are
     # row-sharded over "data" and captioner/ViT inference is tensor-
@@ -194,13 +261,15 @@ class MeshConfig(_Model):
     axis_names: List[str] = ["data", "model"]
 
 
-class GraphStoreConfig(_Model):
+@_section
+class GraphStoreConfig(_Section):
     backend: str = "embedded"  # embedded | neo4j
     persist_dir: str = "graph_store"
     persist: bool = True
 
 
-class ACSConfig(_Model):
+@_section
+class ACSConfig(_Section):
     backend: str = "auto"      # auto | xla | networkx
     louvain: str = "device"    # device (XLA, approx) | networkx (exact seed)
     exact_efficiency_max_nodes: int = 500
@@ -209,13 +278,15 @@ class ACSConfig(_Model):
     robustness_removal_fraction: float = 0.1
 
 
-class EmbeddingMemoryConfig(_Model):
+@_section
+class EmbeddingMemoryConfig(_Section):
     dim: int = 512
     initial_capacity: int = 4096
     dtype: str = "float32"
 
 
-class PipelineConfig(_Model):
+@_section
+class PipelineConfig(_Section):
     video: VideoConfig = VideoConfig()
     vlm: VLMConfig = VLMConfig()
     llm_injector: LLMInjectorConfig = LLMInjectorConfig()
@@ -235,13 +306,15 @@ class PipelineConfig(_Model):
 
     @classmethod
     def from_yaml(cls, path: str) -> "PipelineConfig":
+        import yaml
+
         with open(path, "r") as f:
             raw: Dict[str, Any] = yaml.safe_load(f) or {}
         return cls.from_dict(raw)
 
     @classmethod
     def from_dict(cls, raw: Dict[str, Any]) -> "PipelineConfig":
-        cfg = cls.model_validate(raw or {})
+        cfg = super().from_dict(raw or {})
         # Record the serving-mesh policy process-wide so every entry point
         # (CLI, engines, servers) picks it up without explicit wiring; the
         # mesh itself is built lazily on first use.
@@ -249,6 +322,3 @@ class PipelineConfig(_Model):
 
         serving.configure(cfg.mesh)
         return cfg
-
-    def to_dict(self) -> Dict[str, Any]:
-        return self.model_dump()

@@ -1,6 +1,6 @@
 """Platform probing — JAX device discovery instead of torch (reference:
-src/core/platform.py:6-39 probes torch cuda/mps; here the accelerator is a
-TPU slice discovered through ``jax.devices()``)."""
+src/core/platform.py:6-39 probes torch cuda/mps; here the accelerator is
+discovered through ``jax.devices()``)."""
 from __future__ import annotations
 
 import os
@@ -23,7 +23,8 @@ class PlatformUtils:
 
     @staticmethod
     def get_accelerator() -> str:
-        """'tpu', 'gpu' or 'cpu' for the default JAX backend."""
+        """'gpu' or 'cpu' (or another JAX platform name) for the default
+        JAX backend."""
         import jax
 
         try:

@@ -2,7 +2,7 @@
 
 The reference's observability was per-batch trace files plus
 ``time.perf_counter`` spans (reference: src/pipeline/kg_builder.py:86-254);
-both are kept (see KGBuilder).  This module adds the TPU-native layer:
+both are kept (see KGBuilder).  This module adds the device layer:
 ``jax.profiler`` device traces viewable in XProf/TensorBoard, and a
 lightweight span timer that aggregates into the MetricsTracker.
 """

@@ -367,7 +367,8 @@ class EmbeddedGraphStore(GraphStore):
         measurably moved the pinned deterministic accuracy.  The 26M
         instruct LM emits near-misses ("beaker" / "Mettler Balance") that
         exact matching silently discards — round-5 real runs applied 0 of
-        its prune ops for exactly this reason (docs/EVAL.md op table).
+        its prune ops for exactly this reason (earlier evaluation
+        notes, in git history).
         Unknown names ("Ghost") must NOT resolve: 0.9 is far above any
         unrelated-name similarity, and ambiguous ties return None."""
         if not name or not isinstance(name, str):

@@ -1,5 +1,5 @@
-"""Video decode + chunking on the host (decode is not TPU-feasible), feeding
-the device preprocessing kernel.
+"""Video decode + chunking on the host (decode stays off the accelerator),
+feeding the device preprocessing.
 
 Chunk/time semantics match the reference (reference:
 src/pipeline/vlm_extractor.py:32-119): chunks are ``chunk_size_seconds``

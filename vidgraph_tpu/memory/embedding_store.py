@@ -1,4 +1,4 @@
-"""HBM-resident embedding memory with fused cosine top-k search.
+"""Device-resident embedding memory with fused cosine top-k search.
 
 This is the device-side replacement for three reference mechanisms:
 Neo4j ``vector.similarity.cosine`` chunk search (reference:
@@ -12,7 +12,7 @@ are frequent, small, and latency-sensitive on the ingest path — staging
 costs no device compiles).  Read path: the buffer is mirrored to the device
 once per generation as a capacity-padded ``[capacity, dim]`` array (capacity
 doubles, so XLA sees a handful of static shapes) and every search is one
-fused cosine matmul + masked top-k through ops.topk_cosine (Pallas on TPU).
+fused cosine matmul + masked top-k through ops.topk_cosine.
 
 Multi-chip: rows can be sharded along the mesh "data" axis; each chip scores
 its shard and top-k is taken after an all-gather of per-shard partials —
@@ -33,7 +33,7 @@ _MIN_CAPACITY = 1024
 
 # Below this many rows a search runs as a host BLAS matmul: one device
 # dispatch costs a fixed round trip that only amortises once the store is
-# large (the device path over 100k x 512 measures ~0.5 ms of compute).
+# large (the crossover is not yet measured on the GPU).
 _DEVICE_MIN_ROWS = 8192
 
 

@@ -48,7 +48,7 @@ class AnswerSelector:
         #: matches.  "pure": the model's scores drive selection alone.
         #: Round-4 measurement: pure selection picks generic summary
         #: sentences over content-bearing ones on 2/30 parity questions
-        #: (docs/EVAL.md); blending recovers them.
+        #: (earlier evaluation notes, in git history); blending recovers them.
         self.mode = mode
         self.cfg = cfg or RerankerConfig()
         if checkpoint_path:

@@ -1,6 +1,6 @@
 """Byte-level VLM captioner: decoder-only transformer with a vision prefix.
 
-TPU-native replacement for the reference's HTTP chat-completions captioning
+In-process replacement for the reference's HTTP chat-completions captioning
 call (reference: src/pipeline/vlm_extractor.py:130-192).  The per-chunk frame
 embeddings from the vision tower are projected into ``num_vision_tokens``
 prefix positions; caption bytes are generated greedily with a static-shape KV
@@ -9,7 +9,7 @@ compiles one step function).
 
 Written in plain JAX (explicit param pytree) so the KV cache threads through
 ``lax.scan`` without mutable-collection machinery; all matmuls accumulate in
-f32 on the MXU.
+f32.
 """
 from __future__ import annotations
 
@@ -82,8 +82,8 @@ def _dense_init(key, shape, scale=0.02, dtype=jnp.float32):
 def init_params(cfg: CaptionerConfig, seed: int = 0,
                 param_dtype: Any = jnp.float32) -> Dict:
     """``param_dtype`` stores the large matrices (embeddings, qkv, mlp,
-    head) in that dtype — bf16 halves HBM and the per-decode-step weight
-    reads for serving-scale models.  Layernorm/bias vectors stay f32 (the
+    head) in that dtype — bf16 halves device memory and the
+    per-decode-step weight reads for serving-scale models.  Layernorm/bias vectors stay f32 (the
     compute path accumulates in f32 either way)."""
     key = jax.random.PRNGKey(seed)
     keys = iter(jax.random.split(key, 8 + cfg.layers * 8))
@@ -133,66 +133,28 @@ def _ln(x, scale, bias, eps=1e-5):
     return (x - m) * jax.lax.rsqrt(var + eps) * scale + bias
 
 
-def flash_engaged(requested: bool) -> bool:
-    """Whether ``flash=requested`` will ACTUALLY use the Pallas kernel:
-    :func:`forward` silently falls back to the masked einsum on any
-    non-TPU backend (including PJRT plugins reporting another platform
-    name).  Trainers must derive their remat decision from THIS, not
-    from the flag alone — einsum without remat is a guaranteed OOM at
-    the 204M/1024 scale (ADVICE r4 medium)."""
-    engaged = requested and jax.default_backend() == "tpu"
-    if requested and not engaged:
-        import warnings
-        warnings.warn(
-            "flash attention requested but backend is "
-            f"'{jax.default_backend()}' (not 'tpu') — falling back to the "
-            "masked-einsum path; enable remat or expect OOM at scale",
-            RuntimeWarning, stacklevel=2)
-    return engaged
+def attention_implementation() -> str:
+    """``jax.nn.dot_product_attention`` backend for the fused path: cuDNN's
+    flash attention on the GPU (an unsupported shape or dtype raises, it
+    never falls back), XLA's formulation of the same op elsewhere."""
+    return "cudnn" if jax.default_backend() == "gpu" else "xla"
 
 
-def flash_pad_len(t: int) -> int:
-    """Sequence length the flash path pads to: the cheaper of the next
-    384- or 512-multiple.  NOT the minimal 128-multiple — the block size
-    in :func:`_attn_flash` must divide the padded length, and 128-blocks
-    ([128, 64] MXU operands at head-dim 64, ~40% occupancy) measurably
-    lose to the fused einsum (docs/EVAL.md mid-scale section: 691.8 vs
-    398.9 ms/step).  A few hundred padded rows of causal-masked FLOPs
-    cost far less than quartering the MXU occupancy."""
-    return min(-(-t // 384) * 384, -(-t // 512) * 512)
+def prefix_causal_attention(q, k, v, nv: int):
+    """Causal self-attention in which the first ``nv`` (vision prefix)
+    slots are mutually visible — the mask of the einsum path, without
+    materialising the [B,h,T,T] probabilities.
 
-
-def _attn_flash(q, k, v, nv: int):
-    """FlashAttention (Pallas TPU kernel, fused fwd + custom-VJP bwd) for
-    the full-sequence training forward: causal over the whole (128-padded)
-    sequence, then the tiny nv-row vision-prefix corner recomputed densely
-    so the semantics EXACTLY match the einsum path's mask (vision slots
-    are mutually fully visible; for query rows >= nv, "columns < nv always
-    visible" is already implied by causality).  O(T) residuals instead of
-    the materialised [B,h,T,T] f32 probabilities — the tensor whose
-    storage forced ``remat=True`` at the 200M scale (docs/EVAL.md
-    mid-scale section) and whose HBM traffic dominated the step.
-
-    q, k, v: [B, T, h, hd] in compute dtype.  Returns [B, T, h, hd]."""
-    from jax.experimental.pallas.ops.tpu.flash_attention import (
-        BlockSizes, flash_attention)
-    hd = q.shape[-1]
-    t = q.shape[1]
-    # The library default tiles everything at 128 — at hd 64 that is a
-    # [128, 64] MXU operand per step, ~40% occupancy.  Pick the largest
-    # 128-multiple block <= 512 that divides the (already 128-padded)
-    # sequence; measured on the 16x1024/204M train step this is the
-    # difference between losing and beating the einsum+remat path.
-    blk = next(b for b in (512, 384, 256, 128) if t % b == 0)
-    bs = BlockSizes(block_q=blk, block_k_major=blk, block_k=blk, block_b=1,
-                    block_q_major_dkv=blk, block_k_major_dkv=blk,
-                    block_k_dkv=blk, block_q_dkv=blk,
-                    block_k_major_dq=blk, block_k_dq=blk, block_q_dq=blk)
-    o = flash_attention(jnp.swapaxes(q, 1, 2), jnp.swapaxes(k, 1, 2),
-                        jnp.swapaxes(v, 1, 2), causal=True,
-                        sm_scale=float(1.0 / hd ** 0.5), block_sizes=bs)
-    o = jnp.swapaxes(o, 1, 2)
+    The fused kernel runs plain causal attention over the whole sequence;
+    for query rows >= nv "columns < nv always visible" is already implied
+    by causality, so only the nv x nv corner differs, and it is recomputed
+    densely.  Right padding after every real row is never attended by a
+    real row (causality).  q, k, v: [B, T, h, hd] in the compute dtype
+    (bf16 for cuDNN).  Returns [B, T, h, hd]."""
+    o = jax.nn.dot_product_attention(
+        q, k, v, is_causal=True, implementation=attention_implementation())
     if nv:
+        hd = q.shape[-1]
         att = jnp.einsum("bqhd,bkhd->bhqk", q[:, :nv], k[:, :nv],
                          preferred_element_type=jnp.float32) / jnp.sqrt(hd)
         att = jax.nn.softmax(att, axis=-1).astype(v.dtype)
@@ -202,13 +164,24 @@ def _attn_flash(q, k, v, nv: int):
     return o
 
 
+def _masked_attention(q, k, v, mask, dtype):
+    """Reference attention: materialised scores + additive mask."""
+    hd = q.shape[-1]
+    att = jnp.einsum("bqhd,bkhd->bhqk", q, k,
+                     preferred_element_type=jnp.float32) / jnp.sqrt(hd)
+    att = att + (mask if mask.ndim == 4 else mask[None, None])
+    att = jax.nn.softmax(att, axis=-1).astype(dtype)
+    return jnp.einsum("bhqk,bkhd->bqhd", att, v,
+                      preferred_element_type=jnp.float32)
+
+
 def _block(bp, cfg: CaptionerConfig, x, mask, flash: bool = False):
     """Full-sequence block. x [B,T,d]; mask additive (0 / -inf), either
     [T,T] (causal) or [B,1,1,T] / [B,1,T,T] (per-example padding masks,
-    used by the bidirectional text encoder).  ``flash=True`` (TPU
-    training path) replaces the materialised attention with the Pallas
-    FlashAttention kernel; the mask argument is then ignored and the
-    causal+vision-prefix pattern is computed by :func:`_attn_flash`."""
+    used by the bidirectional text encoder).  ``flash=True`` replaces the
+    materialised attention with :func:`prefix_causal_attention`; the mask
+    argument is then ignored (the causal+vision-prefix pattern is
+    built in)."""
     d, h = cfg.width, cfg.heads
     hd = d // h
     b, t, _ = x.shape
@@ -220,14 +193,9 @@ def _block(bp, cfg: CaptionerConfig, x, mask, flash: bool = False):
     k = k.reshape(b, t, h, hd)
     v = v.reshape(b, t, h, hd)
     if flash:
-        o = _attn_flash(q, k, v, cfg.num_vision_tokens)
+        o = prefix_causal_attention(q, k, v, cfg.num_vision_tokens)
     else:
-        att = jnp.einsum("bqhd,bkhd->bhqk", q, k,
-                         preferred_element_type=jnp.float32) / jnp.sqrt(hd)
-        att = att + (mask if mask.ndim == 4 else mask[None, None])
-        att = jax.nn.softmax(att, axis=-1).astype(cfg.dtype)
-        o = jnp.einsum("bhqk,bkhd->bqhd", att, v,
-                       preferred_element_type=jnp.float32)
+        o = _masked_attention(q, k, v, mask, cfg.dtype)
     o = o.reshape(b, t, d).astype(cfg.dtype)
     x = x + (wdot(o, bp["attn_o_w"], cfg.dtype, cfg.qmode)
              + bp["attn_o_b"].astype(cfg.dtype)).astype(jnp.float32)
@@ -237,6 +205,14 @@ def _block(bp, cfg: CaptionerConfig, x, mask, flash: bool = False):
     x = x + (wdot(hdn, bp["fc2_w"], cfg.dtype, cfg.qmode)
              + bp["fc2_b"].astype(cfg.dtype)).astype(jnp.float32)
     return x
+
+
+def _prefix_causal_mask(t: int, nv: int):
+    """Additive [t, t] mask: causal, with the nv-slot vision prefix
+    visible to every row."""
+    idx = jnp.arange(t)
+    mask = jnp.where(idx[None, :] <= idx[:, None], 0.0, -1e30)
+    return mask.at[:, :nv].set(0.0)
 
 
 def _embed_inputs(params, cfg: CaptionerConfig, vision_emb, tokens):
@@ -259,34 +235,17 @@ def forward(params: Dict, cfg: CaptionerConfig, vision_emb: jax.Array,
     positions (vision prefix positions are dropped).  ``remat=True``
     rematerialises each block in the backward pass (needed to train at
     long sequence lengths without storing every attention matrix).
-    ``flash=True`` routes attention through the Pallas FlashAttention
-    kernel (TPU only — silently ignored on other backends): same
-    semantics as the masked einsum path (see :func:`_attn_flash`), O(T)
-    attention residuals, so long-sequence training can drop remat."""
+    ``flash=True`` routes attention through
+    :func:`prefix_causal_attention` (cuDNN flash attention on the GPU):
+    same semantics as the masked einsum path, O(T) attention residuals,
+    so long-sequence training can drop remat."""
     x = _embed_inputs(params, cfg, vision_emb, tokens)
-    t = x.shape[1]
     nv = cfg.num_vision_tokens
-    flash = flash and jax.default_backend() == "tpu"
-    if flash:
-        # Pad the sequence for the kernel (see flash_pad_len for why the
-        # target is a 384/512-multiple, not the minimal 128-multiple),
-        # slice the result.  Padded rows are zeros appended AFTER every
-        # real position: causal masking means no real query ever attends
-        # to them.
-        padded = flash_pad_len(t)
-        if padded != t:
-            x = jnp.pad(x, ((0, 0), (0, padded - t), (0, 0)))
-        mask = jnp.zeros((1, 1), jnp.float32)   # unused by the flash path
-    else:
-        # Causal mask; vision prefix is fully visible to itself/tokens.
-        idx = jnp.arange(t)
-        mask = jnp.where(idx[None, :] <= idx[:, None], 0.0, -1e30)
-        mask = mask.at[:, :nv].set(0.0)
+    mask = _prefix_causal_mask(x.shape[1], nv)
     fn = functools.partial(_block, cfg=cfg, flash=flash)
     blk = jax.checkpoint(fn) if remat else fn
     for bp in params["blocks"]:
         x = blk(bp, x=x, mask=mask)
-    x = x[:, :t]
     x = _ln(x, params["ln_f_scale"], params["ln_f_bias"])
     logits = wdot(x[:, nv:].astype(cfg.dtype), params["head_w"],
                   cfg.dtype, cfg.qmode)
@@ -307,10 +266,9 @@ def _step_block(bp, cfg: CaptionerConfig, x, kcache, vcache,
     compute time, so WHERE it sits in the cache is arbitrary; attention
     is permutation-invariant over keys).  This keeps the cache update a
     ``dynamic_update_slice``, which XLA performs in place inside the
-    scan — the round-4 per-row scatter (``cache.at[rows, pos].set``)
-    defeated in-place buffer reuse and copied the ENTIRE cache every
-    step (~6.5 GB/step for a KG extraction batch, ~9.5 ms/step — 10x
-    the model's actual decode cost).  ``prompt_end`` [B] masks each
+    scan — a per-row scatter (``cache.at[rows, pos].set``) defeats
+    in-place buffer reuse and copies the ENTIRE cache every step.
+    ``prompt_end`` [B] masks each
     row's valid prefix keys; decode keys live in
     [decode_base, write_slot]."""
     d, h = cfg.width, cfg.heads
@@ -347,68 +305,34 @@ def _step_block(bp, cfg: CaptionerConfig, x, kcache, vcache,
     return x, kcache, vcache
 
 
-def _prefill(params, cfg: CaptionerConfig, x, causal, maxT: int,
+def _prefill(params, cfg: CaptionerConfig, x, maxT: int,
              flash: bool = False):
     """Run every block over the prompt ``x`` [B,t0,d] while writing its
     K/V into fresh ``maxT``-slot caches.  Returns (x, caches).
 
-    ``flash=True`` (round 5, TPU serving) replaces the materialised
-    attention with the Pallas FlashAttention forward: at the pinned
-    serving shape (b_pad x SERVE_T_PAD) the einsum path writes+reads a
-    [B,h,T,T] f32 probability tensor per layer (4.3 GB at 32x2048) —
-    measured ~3 s per extraction dispatch in the integrated north-star;
-    the flash prefill keeps probabilities in VMEM.  Semantics match the
-    causal+vision-prefix mask exactly (same guarantee as the training
-    path, models/captioner.py::_attn_flash); right-pad columns sit after
-    every real query position, so causality already masks them."""
+    ``flash=True`` replaces the materialised attention with
+    :func:`prefix_causal_attention`: at the serving shape (b_pad x
+    SERVE_T_PAD) the einsum path writes and reads a [B,h,T,T] f32
+    probability tensor per layer (4.3 GB at 32x2048).  Semantics match the
+    causal+vision-prefix mask; right-pad columns sit after every real
+    query position, so causality already masks them."""
     b, t0, d = x.shape
     h, hd = cfg.heads, cfg.width // cfg.heads
-    nv = cfg.num_vision_tokens
-    if flash:
-        tp = flash_pad_len(t0)
-        xp = jnp.pad(x, ((0, 0), (0, tp - t0), (0, 0)))
+    mask = None if flash else _prefix_causal_mask(t0, cfg.num_vision_tokens)
     caches = []
     for bp in params["blocks"]:
-        kc = jnp.zeros((b, maxT, h, hd), cfg.dtype)
-        vc = jnp.zeros((b, maxT, h, hd), cfg.dtype)
-        if flash:
-            y = _ln(xp, bp["ln1_scale"], bp["ln1_bias"]).astype(cfg.dtype)
-            qkv = (wdot(y, bp["qkv_w"], cfg.dtype, cfg.qmode)
-                   + bp["qkv_b"].astype(cfg.dtype))
-            q, k, v = jnp.split(qkv, 3, axis=-1)
-            q = q.reshape(b, tp, h, hd)
-            k = k.reshape(b, tp, h, hd)
-            v = v.reshape(b, tp, h, hd)
-            kc = kc.at[:, :t0].set(k[:, :t0].astype(kc.dtype))
-            vc = vc.at[:, :t0].set(v[:, :t0].astype(vc.dtype))
-            o = _attn_flash(q, k, v, nv)
-            o = o.reshape(b, tp, d).astype(cfg.dtype)
-            xp = xp + (wdot(o, bp["attn_o_w"], cfg.dtype, cfg.qmode)
-                       + bp["attn_o_b"].astype(cfg.dtype)
-                       ).astype(jnp.float32)
-            y = _ln(xp, bp["ln2_scale"], bp["ln2_bias"]).astype(cfg.dtype)
-            hdn = jax.nn.gelu(wdot(y, bp["fc1_w"], cfg.dtype, cfg.qmode)
-                              + bp["fc1_b"].astype(cfg.dtype))
-            xp = xp + (wdot(hdn, bp["fc2_w"], cfg.dtype, cfg.qmode)
-                       + bp["fc2_b"].astype(cfg.dtype)
-                       ).astype(jnp.float32)
-            caches.append((kc, vc))
-            continue
         y = _ln(x, bp["ln1_scale"], bp["ln1_bias"]).astype(cfg.dtype)
         qkv = (wdot(y, bp["qkv_w"], cfg.dtype, cfg.qmode)
-           + bp["qkv_b"].astype(cfg.dtype))
-        q, k, v = jnp.split(qkv, 3, axis=-1)
-        q = q.reshape(b, t0, h, hd)
-        k = k.reshape(b, t0, h, hd)
-        v = v.reshape(b, t0, h, hd)
-        kc = kc.at[:, :t0].set(k.astype(kc.dtype))
-        vc = vc.at[:, :t0].set(v.astype(vc.dtype))
-        att = jnp.einsum("bqhd,bkhd->bhqk", q, k,
-                         preferred_element_type=jnp.float32) / jnp.sqrt(hd)
-        att = att + causal[None, None]
-        att = jax.nn.softmax(att, axis=-1).astype(cfg.dtype)
-        o = jnp.einsum("bhqk,bkhd->bqhd", att, v,
-                       preferred_element_type=jnp.float32)
+               + bp["qkv_b"].astype(cfg.dtype))
+        q, k, v = (a.reshape(b, t0, h, hd) for a in jnp.split(qkv, 3, -1))
+        kc = jnp.zeros((b, maxT, h, hd), cfg.dtype).at[:, :t0].set(
+            k.astype(cfg.dtype))
+        vc = jnp.zeros((b, maxT, h, hd), cfg.dtype).at[:, :t0].set(
+            v.astype(cfg.dtype))
+        if flash:
+            o = prefix_causal_attention(q, k, v, cfg.num_vision_tokens)
+        else:
+            o = _masked_attention(q, k, v, mask, cfg.dtype)
         o = o.reshape(b, t0, d).astype(cfg.dtype)
         x = x + (wdot(o, bp["attn_o_w"], cfg.dtype, cfg.qmode)
                  + bp["attn_o_b"].astype(cfg.dtype)).astype(jnp.float32)
@@ -418,8 +342,6 @@ def _prefill(params, cfg: CaptionerConfig, x, causal, maxT: int,
         x = x + (wdot(hdn, bp["fc2_w"], cfg.dtype, cfg.qmode)
                  + bp["fc2_b"].astype(cfg.dtype)).astype(jnp.float32)
         caches.append((kc, vc))
-    if flash:
-        x = xp[:, :t0]
     return x, caches
 
 
@@ -446,15 +368,13 @@ def _decode_loop(params, cfg: CaptionerConfig, first_tok, caches,
 
     Deliberately a STATIC-trip ``lax.scan``, not an all-rows-EOS
     early-exit ``while_loop``: the early exit is token-identical (done
-    rows are forced to EOS) and was measured, but a dynamic trip count
-    costs ~1.6x the scan's per-step wall on the chip (XLA pipelines /
-    double-buffers counted loops only; a 64-step inner scan inside the
-    while did NOT recover it), so it only pays when every completion is
-    far shorter than its budget.  On the KG workload's tail — where
-    refinement outputs approach the budget — it measured SLOWER
-    end-to-end (docs/DESIGN.md round-4 lesson 8), so the static scan
-    stays.  Callers bound waste instead via power-of-two decode budgets
-    (``TPUChatClient._decode_budget``)."""
+    rows are forced to EOS), but a dynamic trip count costs more per
+    step than a counted loop, so it only pays when every completion is
+    far shorter than its budget — on the KG workload's tail, where
+    refinement outputs approach the budget, it measured slower end to
+    end on the earlier accelerator (docs/DESIGN.md, lesson 7; not yet
+    re-measured on the GPU).  Callers bound waste instead via
+    power-of-two decode budgets (``TPUChatClient._decode_budget``)."""
     b = first_tok.shape[0]
     prompt_end = start  # cache slots [0, start) hold each row's prefix
     constrained = grammar_trans is not None
@@ -500,10 +420,7 @@ def generate(params: Dict, cfg: CaptionerConfig, vision_emb: jax.Array,
     bos = jnp.full((b, 1), BOS_ID, jnp.int32)
     x = _embed_inputs(params, cfg, vision_emb, bos)   # [B, nv+1, d]
     t0 = x.shape[1]
-    idx = jnp.arange(t0)
-    causal = jnp.where(idx[None, :] <= idx[:, None], 0.0, -1e30)
-    causal = causal.at[:, :nv].set(0.0)
-    x, caches = _prefill(params, cfg, x, causal, maxT)
+    x, caches = _prefill(params, cfg, x, maxT)
     logits = _head_logits(params, cfg, x[:, -1:])
     first_tok = jnp.argmax(logits[:, 0], axis=-1).astype(jnp.int32)
     start = jnp.full((b,), t0, jnp.int32)
@@ -550,10 +467,7 @@ def generate_from_tokens(params: Dict, cfg: CaptionerConfig,
     vis = jnp.zeros((b, nv, cfg.vision_dim), jnp.float32)
     x = _embed_inputs(params, cfg, vis, tokens)       # [B, nv+T_pad, d]
     t0 = x.shape[1]
-    idx = jnp.arange(t0)
-    causal = jnp.where(idx[None, :] <= idx[:, None], 0.0, -1e30)
-    causal = causal.at[:, :nv].set(0.0)
-    x, caches = _prefill(params, cfg, x, causal, maxT, flash=flash)
+    x, caches = _prefill(params, cfg, x, maxT, flash=flash)
     logits = _head_logits(params, cfg, x)             # [B, t0, v]
     last = jnp.maximum(nv + prompt_len - 1, 0)        # [B]
     first_logits = logits[jnp.arange(b), last]        # [B, v]

@@ -1,4 +1,4 @@
-"""Self-distilled instruction dataset for the TPU chat LM.
+"""Self-distilled instruction dataset for the in-process chat LM.
 
 ``backend.llm: tpu`` needs a byte-level LM that actually follows the
 pipeline's prompt contracts (VERDICT r2 missing #2 / next #3).  The

@@ -1,25 +1,21 @@
 """Weight-only int8 serving quantization for the decoder stack.
 
-Motivation (round 4): ``CaptionerConfig.large()`` greedy decode is
-HBM-bound — MBU 0.78 at bf16 means ~78% of every decode step is spent
-streaming 2.4 GB of weights.  Storing the block matrices as int8 with
-per-output-channel f32 scales halves the bytes per step, so a
-bandwidth-bound decode approaches 2x tokens/s.  (Contrast with
-``models/vit_quant.py``: the ViT tower is compute/VPU-bound at B=160 and
-int8 measured a wash there — decode at B<=32 is the regime where int8
-pays.)
+Greedy decode of ``CaptionerConfig.large()`` at small batch reads every
+weight once per step, so it is bound by device-memory bandwidth: storing
+the block matrices as int8 with per-output-channel f32 scales halves the
+bytes per step relative to bf16.  (Contrast with ``models/vit_quant.py``:
+the ViT tower runs at B=160, where the matmuls are larger.)
 
 Two dot modes, both numerically verified against the f32/bf16 path
-(tests/test_quant8.py) and both measured on the chip
-(scripts/profile_int8_decode.py):
+(tests/test_quant8.py; timed by scripts/profile_int8_decode.py):
 
-* ``a16`` — keep activations bf16, convert the int8 weight tile inside
-  the matmul: ``(x @ q.astype(bf16)) * s``.  Per-OUTPUT-channel scales
-  commute through the contraction, so the rescale is a cheap [N]-vector
-  epilogue instead of a dequantized [K,N] matrix in HBM.
+* ``a16`` — keep activations bf16, convert the int8 weight inside the
+  matmul: ``(x @ q.astype(bf16)) * s``; the GEMM reads int8.
+  Per-OUTPUT-channel scales commute through the contraction, so the rescale is a cheap [N]-vector
+  epilogue instead of a dequantized [K,N] matrix in device memory.
 * ``a8`` — dynamically quantize the (tiny, [B,K]) activation per row and
-  run a native int8 x int8 MXU dot with int32 accumulation:
-  ``(x_i8 @ q) * (sx[:,None] * sw[None,:])``.
+  run a native int8 x int8 dot with int32 accumulation (int8 tensor
+  cores): ``(x_i8 @ q) * (sx[:,None] * sw[None,:])``.
 
 A quantized weight is a :class:`Q8` pytree node (children ``q`` int8
 [..., out] and ``s`` f32 [out]; no static aux), so a quantized parameter
@@ -29,8 +25,7 @@ matmul through :func:`wdot`, which works identically for f32, bf16, and
 Q8 leaves.
 
 No reference counterpart (the reference served its models over HTTP,
-reference: src/pipeline/vlm_extractor.py:130-192); this is TPU-serving
-infrastructure.
+reference: src/pipeline/vlm_extractor.py:130-192).
 """
 from __future__ import annotations
 
@@ -38,7 +33,7 @@ from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
-import numpy as np
+
 
 @jax.tree_util.register_pytree_node_class
 class Q8:
@@ -98,26 +93,13 @@ def quantize_captioner_params(params: Dict, head: bool = True) -> Dict:
 
 def wdot(x: jnp.ndarray, w: Any, dtype: Any, mode: str = "a16") -> jnp.ndarray:
     """``x @ w`` where ``w`` is a float matrix OR a :class:`Q8`.  Output
-    dtype follows the float path (``dtype``, f32-accumulated on the MXU).
+    dtype follows the float path (``dtype``).
     ``mode`` must be trace-static — the captioner carries it in its
     (static) config so switching modes retraces."""
     if not is_q8(w):
         return x @ w.astype(dtype)
-    if mode == "a16p":
-        # Pallas kernel: int8 tile converted in VMEM — data movement
-        # pinned by construction (ops/q8_matmul.py).  Only profitable
-        # (and VMEM-safe) for small-M decode steps on real TPU; other
-        # shapes/backends use the XLA a16 path below.
-        lead = int(np.prod(x.shape[:-1]))
-        k, n = w.q.shape
-        if (jax.default_backend() == "tpu" and lead <= 64
-                and k % 128 == 0 and n % 128 == 0):
-            from ..ops.q8_matmul import q8_matmul
-            y = q8_matmul(x.reshape(lead, k), w.q, w.s)
-            return y.reshape(*x.shape[:-1], n).astype(dtype)
-        mode = "a16"
     if mode == "a8":
-        # dynamic per-row activation quant; int8 x int8 MXU dot
+        # dynamic per-row activation quant; int8 x int8 -> int32 dot
         xf = x.astype(jnp.float32)
         sx = jnp.max(jnp.abs(xf), axis=-1, keepdims=True) / 127.0
         sx = jnp.maximum(sx, 1e-8)
@@ -126,14 +108,16 @@ def wdot(x: jnp.ndarray, w: Any, dtype: Any, mode: str = "a16") -> jnp.ndarray:
             xq, w.q, (((xq.ndim - 1,), (0,)), ((), ())),
             preferred_element_type=jnp.int32)
         return (acc.astype(jnp.float32) * sx * w.s).astype(dtype)
-    # a16: int8 -> bf16 convert fuses into the dot's operand read; the
-    # per-output-channel rescale commutes out as a vector epilogue
+    # a16: XLA:GPU fuses the int8 -> bf16 convert into the GEMM's operand
+    # read (the compiled GEMM fusion takes the s8 weight itself; checked
+    # on an H100); the per-output-channel rescale commutes out as a
+    # vector epilogue
     y = x @ w.q.astype(dtype)
     return (y.astype(jnp.float32) * w.s).astype(dtype)
 
 
 def tree_bytes(params: Dict) -> int:
-    """Actual HBM bytes of the (possibly mixed) serving tree."""
+    """Actual device bytes of the (possibly mixed) serving tree."""
     return sum(leaf.size * leaf.dtype.itemsize
                for leaf in jax.tree_util.tree_leaves(params)
                if hasattr(leaf, "dtype"))

@@ -1,7 +1,7 @@
 """Trained cross-encoder reranker (``backend.reranker: trained``).
 
 The reference reranked with a dedicated cross-encoder service over HTTP
-(reference: src/pipeline/retriever_hybrid.py:524-547); round 2's TPU
+(reference: src/pipeline/retriever_hybrid.py:524-547); round 2's in-process
 reranker was cosine over the same retrieval embedder, i.e. rerank added
 no new signal (VERDICT r2 missing #4).  This is the real thing: a
 byte-level bidirectional transformer over the CONCATENATED

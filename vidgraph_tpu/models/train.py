@@ -2,8 +2,8 @@
 tower -> byte-level captioner) over a device mesh.
 
 The reference had no trainable models (all inference over HTTP); this
-module makes the in-process models improvable on-TPU: data-parallel batches
-over the mesh "data" axis, tensor-parallel weights over "model"
+module makes the in-process models trainable on the device:
+data-parallel batches over the mesh "data" axis, tensor-parallel weights over "model"
 (column-split qkv/fc1, row-split proj/fc2), optional gradient
 rematerialisation, adamw.
 

@@ -1,9 +1,16 @@
-"""Vision tower: CLIP-style ViT in Flax, MXU-friendly.
+"""Vision tower: CLIP-style ViT in plain JAX.
 
 Replaces the reference's HTTP round-trip to an external VLM server for frame
 understanding (reference: src/pipeline/vlm_extractor.py:130-192).  Frames are
 preprocessed by ops.preprocess, patchified into a matmul-ready matrix, and
-run batched per chunk; all matmuls are bf16-compute / f32-accumulate.
+run batched per chunk; matmuls run in the compute dtype (bf16 by default).
+
+The parameter tree keeps the layout of the earlier flax.linen module
+(``{"params": {"patch_embed": {"kernel", "bias"}, "cls", "pos",
+"block_{i}": {"ln1", "attn": {"qkv", "proj"}, "ln2", "fc1", "fc2"},
+"ln_post", "proj"}}``) and its numerics (Dense: operands and bias cast to
+the compute dtype; LayerNorm: float32 statistics, epsilon 1e-6), so saved
+``.npz`` checkpoints, ``models/vit_quant.py`` and the trainer keep working.
 
 Tensor-parallel sharding: attention heads and MLP hidden are split along the
 mesh "model" axis (see param_shardings()), batch along "data".
@@ -13,12 +20,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from ..ops.preprocess import patchify
+
+_LN_EPS = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,10 +39,6 @@ class ViTConfig:
     embed_dim: int = 512          # output projection dim
     mlp_ratio: int = 4
     dtype: Any = jnp.bfloat16     # compute dtype
-    #: attention implementation: "einsum" (reference path), "packed"
-    #: (XLA head-pair packing), "fused" (Pallas QK^T+softmax+V kernel)
-    #: — all exact; see ops/short_attention.py for why N=50 wants this
-    attn_impl: str = "einsum"
 
     @property
     def num_patches(self) -> int:
@@ -51,94 +55,106 @@ class ViTConfig:
                    heads=2, embed_dim=32, dtype=jnp.float32)
 
 
-class MHA(nn.Module):
-    cfg: ViTConfig
+def _dense(p, x, dtype):
+    return (jnp.dot(x.astype(dtype), p["kernel"].astype(dtype))
+            + p["bias"].astype(dtype))
 
-    @nn.compact
-    def __call__(self, x: jax.Array) -> jax.Array:
+
+def _layer_norm(p, x, dtype):
+    xf = x.astype(jnp.float32)
+    m = jnp.mean(xf, axis=-1, keepdims=True)
+    v = jnp.mean(jnp.square(xf - m), axis=-1, keepdims=True)
+    y = (xf - m) * jax.lax.rsqrt(v + _LN_EPS) * p["scale"] + p["bias"]
+    return y.astype(dtype)
+
+
+def _attention(p, cfg: ViTConfig, x):
+    d = cfg.width
+    hd = d // cfg.heads
+    b, n, _ = x.shape
+    qkv = _dense(p["qkv"], x, cfg.dtype)
+    q, k, v = (a.reshape(b, n, cfg.heads, hd)
+               for a in jnp.split(qkv, 3, axis=-1))
+    att = jnp.einsum("bqhd,bkhd->bhqk", q, k,
+                     preferred_element_type=jnp.float32)
+    att = att / jnp.sqrt(hd).astype(att.dtype)
+    att = jax.nn.softmax(att, axis=-1).astype(cfg.dtype)
+    out = jnp.einsum("bhqk,bkhd->bqhd", att, v,
+                     preferred_element_type=jnp.float32)
+    return _dense(p["proj"], out.reshape(b, n, d).astype(cfg.dtype),
+                  cfg.dtype)
+
+
+def _block(p, cfg: ViTConfig, x):
+    x = x + _attention(p["attn"], cfg, _layer_norm(p["ln1"], x, cfg.dtype))
+    h = jax.nn.gelu(_dense(p["fc1"], _layer_norm(p["ln2"], x, cfg.dtype),
+                           cfg.dtype))
+    return x + _dense(p["fc2"], h, cfg.dtype)
+
+
+class VisionTower:
+    """images [B,H,W,3] f32 (already normalised) -> embeddings [B, embed_dim]
+    (L2-normalised f32), or per-token projections [B, N+1, embed_dim] with
+    ``return_tokens=True``."""
+
+    def __init__(self, cfg: ViTConfig):
+        self.cfg = cfg
+
+    def apply(self, params: Dict, images: jax.Array,
+              return_tokens: bool = False) -> jax.Array:
         c = self.cfg
-        d = c.width
-        hd = d // c.heads
-        qkv = nn.Dense(3 * d, dtype=c.dtype, name="qkv")(x)
-        q, k, v = jnp.split(qkv, 3, axis=-1)
-        b, n, _ = x.shape
-        q = q.reshape(b, n, c.heads, hd)
-        k = k.reshape(b, n, c.heads, hd)
-        v = v.reshape(b, n, c.heads, hd)
-        impl = c.attn_impl if c.heads % 2 == 0 else "einsum"
-        if impl in ("packed", "fused"):
-            from ..ops.short_attention import (fused_short_attention,
-                                               packed_attention)
-            qh = jnp.swapaxes(q, 1, 2)       # [b, h, n, hd]
-            kh = jnp.swapaxes(k, 1, 2)
-            vh = jnp.swapaxes(v, 1, 2)
-            if impl == "fused":
-                oh = fused_short_attention(
-                    qh, kh, vh,
-                    interpret=jax.default_backend() != "tpu")
-            else:
-                oh = packed_attention(qh, kh, vh)
-            out = jnp.swapaxes(oh, 1, 2)
-        else:
-            att = jnp.einsum("bqhd,bkhd->bhqk", q, k,
-                             preferred_element_type=jnp.float32)
-            att = att / jnp.sqrt(hd).astype(att.dtype)
-            att = jax.nn.softmax(att, axis=-1).astype(c.dtype)
-            out = jnp.einsum("bhqk,bkhd->bqhd", att, v,
-                             preferred_element_type=jnp.float32)
-        out = out.reshape(b, n, d).astype(c.dtype)
-        return nn.Dense(d, dtype=c.dtype, name="proj")(out)
-
-
-class Block(nn.Module):
-    cfg: ViTConfig
-
-    @nn.compact
-    def __call__(self, x: jax.Array) -> jax.Array:
-        c = self.cfg
-        y = nn.LayerNorm(dtype=c.dtype, name="ln1")(x)
-        x = x + MHA(c, name="attn")(y)
-        y = nn.LayerNorm(dtype=c.dtype, name="ln2")(x)
-        h = nn.Dense(c.width * c.mlp_ratio, dtype=c.dtype, name="fc1")(y)
-        h = jax.nn.gelu(h)
-        x = x + nn.Dense(c.width, dtype=c.dtype, name="fc2")(h)
-        return x
-
-
-class VisionTower(nn.Module):
-    """images [B,H,W,3] f32 (already normalised) -> embeddings [B, embed_dim]."""
-    cfg: ViTConfig
-
-    @nn.compact
-    def __call__(self, images: jax.Array,
-                 return_tokens: bool = False) -> jax.Array:
-        c = self.cfg
+        p = params["params"]
         patches = patchify(images, c.patch_size).astype(c.dtype)
-        x = nn.Dense(c.width, dtype=c.dtype, name="patch_embed")(patches)
-        b, n, _ = x.shape
-        cls = self.param("cls", nn.initializers.normal(0.02), (1, 1, c.width))
-        pos = self.param("pos", nn.initializers.normal(0.02),
-                         (1, n + 1, c.width))
-        x = jnp.concatenate([jnp.tile(cls.astype(c.dtype), (b, 1, 1)), x],
-                            axis=1)
-        x = x + pos.astype(c.dtype)
+        x = _dense(p["patch_embed"], patches, c.dtype)
+        b = x.shape[0]
+        cls = jnp.tile(p["cls"].astype(c.dtype), (b, 1, 1))
+        x = jnp.concatenate([cls, x], axis=1) + p["pos"].astype(c.dtype)
         for i in range(c.layers):
-            x = Block(c, name=f"block_{i}")(x)
-        x = nn.LayerNorm(dtype=c.dtype, name="ln_post")(x)
+            x = _block(p[f"block_{i}"], c, x)
+        x = _layer_norm(p["ln_post"], x, c.dtype)
         if return_tokens:
-            return nn.Dense(c.embed_dim, dtype=c.dtype, name="proj")(x)
-        cls_out = x[:, 0]
-        out = nn.Dense(c.embed_dim, dtype=c.dtype, name="proj")(cls_out)
-        out = out.astype(jnp.float32)
+            return _dense(p["proj"], x, c.dtype)
+        out = _dense(p["proj"], x[:, 0], c.dtype).astype(jnp.float32)
         return out * jax.lax.rsqrt(
             jnp.sum(out * out, axis=-1, keepdims=True) + 1e-12)
 
 
+def init_params(cfg: ViTConfig, seed: int = 0) -> Dict:
+    """Random f32 parameters: LeCun-normal kernels, zero biases, unit
+    LayerNorm scales, N(0, 0.02) class token and positions."""
+    keys = iter(jax.random.split(jax.random.PRNGKey(seed), 4 + 4 * cfg.layers))
+    lecun = jax.nn.initializers.lecun_normal()
+    d, hidden = cfg.width, cfg.width * cfg.mlp_ratio
+
+    def dense(n_in, n_out):
+        return {"kernel": lecun(next(keys), (n_in, n_out), jnp.float32),
+                "bias": jnp.zeros((n_out,), jnp.float32)}
+
+    def ln():
+        return {"scale": jnp.ones((d,), jnp.float32),
+                "bias": jnp.zeros((d,), jnp.float32)}
+
+    p: Dict[str, Any] = {
+        "patch_embed": dense(cfg.patch_size ** 2 * 3, d),
+        "cls": 0.02 * jax.random.normal(next(keys), (1, 1, d)),
+        "pos": 0.02 * jax.random.normal(next(keys),
+                                        (1, cfg.num_patches + 1, d)),
+    }
+    for i in range(cfg.layers):
+        p[f"block_{i}"] = {
+            "ln1": ln(),
+            "attn": {"qkv": dense(d, 3 * d), "proj": dense(d, d)},
+            "ln2": ln(),
+            "fc1": dense(d, hidden),
+            "fc2": dense(hidden, d),
+        }
+    p["ln_post"] = ln()
+    p["proj"] = dense(d, cfg.embed_dim)
+    return {"params": p}
+
+
 def init_vision_tower(cfg: ViTConfig, seed: int = 0):
-    model = VisionTower(cfg)
-    dummy = jnp.zeros((1, cfg.image_size, cfg.image_size, 3), jnp.float32)
-    params = model.init(jax.random.PRNGKey(seed), dummy)
-    return model, params
+    return VisionTower(cfg), init_params(cfg, seed)
 
 
 def param_shardings(params: Dict, mesh) -> Dict:
@@ -153,8 +169,6 @@ def param_shardings(params: Dict, mesh) -> Dict:
         if any(k in path for k in ("proj", "fc2")):
             return P("model", None)      # row parallel
         return P()
-
-    flat = jax.tree_util.tree_flatten_with_path(params)[0]
 
     def assign(path, leaf):
         name = "/".join(str(p.key) for p in path if hasattr(p, "key"))

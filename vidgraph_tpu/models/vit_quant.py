@@ -1,21 +1,16 @@
-"""int8-quantized ViT inference path — measured dead end, kept for the
-record.
+"""int8-quantized ViT inference path (not wired into any backend).
 
-The v5e MXU runs int8 at ~1.7x the bf16 matmul rate in isolation
-(measured 141 TOPS vs 84 TFLOP/s for the ViT MLP shape).  This module
-consumes the SAME flax parameter pytree as ``models/vit.py`` — weights
+int8 tensor cores run at twice the bf16 rate.  This module
+consumes the SAME parameter pytree as ``models/vit.py`` — weights
 quantized once (symmetric per-output-channel int8), activations
 dynamically per row, int32 accumulation, f32 rescale; attention
 score/softmax/context matmuls stay bf16.  Numerics are fine (cosine
 >= 0.9996 vs the f32 tower, tests/test_models.py).
 
-**Measured end-to-end on the chip it does NOT help**: fused
-preprocess+ViT-B/32 at B=160 runs 7.0k fps bf16 vs 7.0k fps int8 (B=256:
-7.2k vs 6.0k).  At ~30-37% MFU the dense matmuls are only a third of the
-step; the dynamic abs-max/round/clip activation quantization on the VPU
-plus the extra f32 rescales cost more than the MXU saves.  int8 would pay
-on an MXU-bound model (bigger width / longer sequences) or with static
-activation scales; not on this tower.  Not wired into any backend.
+Whether it pays end to end against the bf16 tower on the GPU is not
+measured: the dynamic abs-max/round/clip activation quantization and the
+extra f32 rescales are elementwise work that the int8 matmuls must win
+back.
 """
 from __future__ import annotations
 

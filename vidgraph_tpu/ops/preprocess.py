@@ -2,11 +2,11 @@
 
 The reference decodes frames with OpenCV, downscales to <=720p and JPEG/base64
 encodes them for an HTTP VLM (reference: src/pipeline/vlm_extractor.py:98-128).
-Here frames stay raw on the host, are shipped to the device once per chunk,
-and a fused Pallas kernel performs the uint8->float convert + CLIP
-normalisation in one pass over VMEM (the resize runs as XLA
-``jax.image.resize`` which fuses with the surrounding ops); patch extraction
-is a reshape/transpose that XLA folds into the vision tower's first matmul.
+Here frames stay raw on the host and are shipped to the device once per
+chunk; the uint8->float convert, resize and CLIP normalisation are plain
+XLA ops that fuse (or, on the ``fast`` path, ride inside two matmuls), and
+patch extraction is a reshape/transpose that XLA folds into the vision
+tower's first matmul.
 
 Everything is batched per chunk (frames_per_chunk at once) instead of the
 reference's frame-serial loop.
@@ -14,69 +14,22 @@ reference's frame-serial loop.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 # CLIP pixel statistics (public constants).
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
-def _normalize_kernel(x_ref, scale_ref, bias_ref, o_ref):
-    """Fused uint8 -> f32 dequant + per-channel affine normalisation.
-
-    x_ref:     [H, W*3] uint8 block (channels flattened into lanes)
-    scale_ref: [1, W*3] f32 (per-channel 1/(255*std), tiled across W)
-    bias_ref:  [1, W*3] f32 (per-channel -mean/std, tiled across W)
-    """
-    x = x_ref[:].astype(jnp.float32)
-    o_ref[:] = x * scale_ref[:] + bias_ref[:]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _pallas_normalize(frames: jax.Array, scale_row: jax.Array,
-                      bias_row: jax.Array, interpret: bool = False) -> jax.Array:
-    """frames [B,H,W,3] uint8 -> [B,H,W,3] f32 normalised."""
-    b, h, w, c = frames.shape
-    flat = frames.reshape(b, h, w * c)
-    out = pl.pallas_call(
-        _normalize_kernel,
-        grid=(b,),
-        in_specs=[
-            pl.BlockSpec((1, h, w * c), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, w * c), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, w * c), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, h, w * c), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, h, w * c), jnp.float32),
-        interpret=interpret,
-    )(flat, scale_row, bias_row)
-    return out.reshape(b, h, w, c)
-
-
-def _affine_rows(w: int, dtype=jnp.float32) -> Tuple[jax.Array, jax.Array]:
-    mean = np.asarray(CLIP_MEAN, np.float32)
-    std = np.asarray(CLIP_STD, np.float32)
-    scale = np.tile(1.0 / (255.0 * std), w)[None, :]
-    bias = np.tile(-mean / std, w)[None, :]
-    return jnp.asarray(scale, dtype), jnp.asarray(bias, dtype)
-
-
 @functools.lru_cache(maxsize=32)
 def _interp_matrix(dst: int, src: int) -> np.ndarray:
     """1-D antialiased bilinear (triangle-kernel) interpolation matrix
-    [dst, src].  Separable 2-D resize then becomes two MXU matmuls —
-    ~20% faster end-to-end than gather-based ``jax.image.resize`` on the
-    720p->224 path while keeping antialias quality."""
+    [dst, src].  Separable 2-D resize then becomes two matmuls on the
+    tensor cores instead of gather-based ``jax.image.resize``, with the
+    same antialias quality."""
     scale = src / dst
     support = max(1.0, scale)
     out = np.zeros((dst, src), np.float32)
@@ -99,9 +52,9 @@ def _norm_block_matrix(dst: int, src: int, c: int) -> np.ndarray:
     ``[src*c, dst*c]`` block matrix: ``R[(s,ch), (w,ch)] =
     interp[w,s] / (255*std_ch)``.  Contracting the flattened ``(w,c)``
     axis of a ``[B,H,src*c]`` image against it performs the width resize
-    for all channels in a single well-shaped MXU matmul (M=B*H, K=src*c,
-    N=dst*c) — the naive einsum form degenerates to M=3 batched matmuls
-    on the channel axis, which the MXU pads 5x.  The per-channel
+    for all channels in a single well-shaped matmul (M=B*H, K=src*c,
+    N=dst*c) — the naive einsum form degenerates to batched matmuls with
+    a 3-wide channel axis, which no matrix unit fills.  The per-channel
     normalisation scale rides along for free; only the additive bias
     remains outside.
     """
@@ -111,16 +64,15 @@ def _norm_block_matrix(dst: int, src: int, c: int) -> np.ndarray:
     return blocks * inv_std[None, :]
 
 
-@functools.partial(jax.jit, static_argnames=("size", "use_pallas", "fast"))
+@functools.partial(jax.jit, static_argnames=("size", "fast"))
 def preprocess_frames(frames_u8: jax.Array, size: int = 224,
-                      use_pallas: bool = False,
                       fast: bool = False) -> jax.Array:
     """[B,H,W,3] uint8 -> [B,size,size,3], CLIP-normalised.
 
-    ``fast=True`` (the TPU hot path) resizes via two bf16 matmuls on the
-    MXU (separable antialiased bilinear) with the CLIP normalisation
-    scale folded into the width-resize matrix, and returns bf16.
-    Default is the exact f32 path.
+    ``fast=True`` (the serving path) resizes via two bf16 matmuls on the
+    tensor cores (separable antialiased bilinear) with the CLIP
+    normalisation scale folded into the width-resize matrix, and returns
+    bf16.  Default is the exact f32 path.
     """
     x = frames_u8
     b, h, w, c = x.shape
@@ -147,9 +99,6 @@ def preprocess_frames(frames_u8: jax.Array, size: int = 224,
         mean = jnp.asarray(CLIP_MEAN, jnp.float32) * 255.0
         std = jnp.asarray(CLIP_STD, jnp.float32) * 255.0
         return (xf - mean) / std
-    if use_pallas:
-        scale, bias = _affine_rows(size)
-        return _pallas_normalize(x, scale, bias)
     mean = jnp.asarray(CLIP_MEAN, jnp.float32) * 255.0
     std = jnp.asarray(CLIP_STD, jnp.float32) * 255.0
     return (x.astype(jnp.float32) - mean) / std

@@ -1,12 +1,13 @@
 """Device-mesh construction and sharding helpers.
 
 The reference has no parallelism at all (SURVEY.md §2); this module is the
-TPU-native substrate everything multi-chip rides on: a 2-D
+substrate everything multi-device rides on: a 2-D
 ``jax.sharding.Mesh`` with ("data", "model") axes.  The vision tower /
 captioner are tensor-sharded along "model" (attention heads, MLP hidden) and
 batch-sharded along "data"; the embedding memory is row-sharded along "data"
 so each chip scans its shard of the store and top-k results are combined with
-an all-gather over ICI.
+an all-gather (NVLink between GPUs).  The mesh is shaped for the
+algorithm alone: every card reaches every other at the same rate.
 """
 from __future__ import annotations
 

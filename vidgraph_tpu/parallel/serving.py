@@ -1,7 +1,7 @@
 """Serving-path mesh plumbing: one switch that turns multi-chip on.
 
 The reference scaled by HTTP fan-out to external model servers
-(reference: src/pipeline/retriever_hybrid.py:166-169); the TPU-native
+(reference: src/pipeline/retriever_hybrid.py:166-169); the in-process
 equivalent is a process-wide ``jax.sharding.Mesh`` that the *product*
 code paths consult:
 
@@ -9,17 +9,17 @@ code paths consult:
   serving path (graph-store chunk vectors, realtime stream memories, the
   HTTP memory server) calls this instead of constructing
   ``EmbeddingStore`` directly; with an active mesh it returns a
-  row-sharded ``ShardedEmbeddingStore`` (global top-k over ICI).
-* ``shard_captioner_params`` / ``shard_vit_params`` — TPU model clients
-  pass their weights through these so captioner/ViT *inference* runs
-  tensor-parallel over the mesh "model" axis (same shardings the trainer
+  row-sharded ``ShardedEmbeddingStore`` (global top-k over the mesh).
+* ``shard_captioner_params`` / ``shard_vit_params`` — in-process model
+  clients pass their weights through these so captioner/ViT *inference*
+  runs tensor-parallel over the mesh "model" axis (same shardings the trainer
   uses, models/train.py).
 * ``serving_mesh()`` — the active mesh or None.
 
 Policy (``mesh.enabled`` in the YAML config tree):
 
 * ``"auto"`` (default) — a mesh is built iff the process sees more than
-  one JAX device (a single v5e chip serves single-device; a v5e-8 slice
+  one JAX device (one GPU serves single-device; a 4-GPU host
   shards automatically).
 * ``true`` / ``false`` — force on (even on one device) / off.
 

@@ -1,9 +1,9 @@
-"""Multi-chip embedding-memory search: store rows sharded over the mesh
-"data" axis, each chip scores its shard, global top-k via collectives.
+"""Multi-device embedding-memory search: store rows sharded over the mesh
+"data" axis, each device scores its shard, global top-k via collectives.
 
-This is the scale-out path for the embedding memory once a single chip's
-HBM (or its matmul throughput) is the bottleneck — e.g. hours-long video
-memories across a v5e-8.  ``ShardedEmbeddingStore`` is a drop-in subclass
+This is the scale-out path for the embedding memory once a single card's
+memory (or its bandwidth) is the bottleneck — e.g. hours-long video
+memories across four GPUs.  ``ShardedEmbeddingStore`` is a drop-in subclass
 of ``memory.embedding_store.EmbeddingStore`` (same host-side bookkeeping,
 id semantics, persistence and host-BLAS routing below the device
 threshold); only the device mirror placement and the jitted search differ.
@@ -13,8 +13,8 @@ memory server) whenever a multi-device mesh is active.
 
 XLA inserts the collectives: the row-sharded score matrix feeds
 ``lax.top_k`` over the full row axis, which lowers to per-shard top-k +
-all-gather + final reduction over ICI.  The reference's equivalent
-concurrency surface was an asyncio gather of HTTP searches
+all-gather + final reduction (NCCL over NVLink on GPUs).  The
+reference's equivalent concurrency surface was an asyncio gather of HTTP searches
 (reference: src/pipeline/retriever_hybrid.py:166-169).
 """
 from __future__ import annotations

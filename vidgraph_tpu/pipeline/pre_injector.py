@@ -107,7 +107,8 @@ class PreLLMInjector:
         self._splitter = make_splitter(
             getattr(chunking_config, "splitter", "token"),
             chunking_config.chunk_size, chunking_config.chunk_overlap,
-            word_splitter=split_text_by_words)
+            word_splitter=split_text_by_words,
+            encoder=getattr(chunking_config, "token_encoder", "estimator"))
         # trace info for the per-batch injection log
         self.last_chunk_details: List[Dict[str, Any]] = []
 
@@ -169,12 +170,11 @@ class PreLLMInjector:
         # (reference: src/components/pre_llm_injector.py chunk timeouts).
         # An in-process device client cannot be cancelled mid-dispatch —
         # asyncio.wait_for only abandons the awaiting coroutine while the
-        # decode thread runs to completion — so a first remote compile
-        # slower than the timeout fails EVERY chunk of the batch and then
-        # retries behind the same decode lock (measured: one congested
-        # 180 s+ compile cost a sweep epoch its first two batches).  For
-        # coalescing clients, widen the bound to cover worst-case remote
-        # compile; the work always completes and is otherwise discarded.
+        # decode thread runs to completion — so a first compile slower
+        # than the timeout would fail EVERY chunk of the batch and then
+        # retry behind the same decode lock.  For coalescing clients,
+        # widen the bound to cover a cold compile; the work always
+        # completes and is otherwise discarded.
         timeout_s = self.config.chunk_timeout_seconds
         if getattr(self.chat, "coalesces_batches", False):
             timeout_s = max(timeout_s, 600.0)

@@ -14,7 +14,7 @@ Pipeline parity with reference src/pipeline/retriever_hybrid.py:142-282:
 5. formatting: ``Found results for '...':`` with Chunks / Related Entities /
    Related Relationships sections.
 
-TPU-native redesign of the hot path: query embedding, chunk vector search,
+Device redesign of the hot path: query embedding, chunk vector search,
 and all compression-segment scoring happen as single batched device calls
 through the fused cosine kernel — the reference made one HTTP round trip
 per segment (N+1) plus Bolt round trips per stage.

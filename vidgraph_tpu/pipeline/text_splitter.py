@@ -4,18 +4,20 @@
 text into tokens, take windows of ``chunk_size`` advancing by
 ``chunk_size - chunk_overlap``, decode each window back to text.
 
-Token encoders, best available first:
+Token encoders, chosen explicitly (``chunking.token_encoder``):
 
-* ``tiktoken`` (cl100k_base) when importable — bit-exact reference parity
-  in deployments that have it.
-* A built-in **calibrated estimator**: a re-implementation of the cl100k
-  pre-tokenizer split (contractions / letter runs with one absorbed
+* ``estimator`` (the default) — a built-in **calibrated estimator**: a
+  re-implementation of the cl100k pre-tokenizer split (contractions / letter runs with one absorbed
   leading byte / <=3-digit groups / punctuation runs / whitespace) where
   each pre-token costs a calibrated number of virtual tokens.  Calibrated
   against the reference's committed 215-chunk run: **68/72 batches produce
   the exact reference chunk count, the rest differ by ±1 chunk**
   (see tests/test_text_splitter.py).  Chunks are exact substrings of the
   input (boundaries at pre-token edges), so no text is lost or invented.
+* ``tiktoken`` — exact cl100k_base, bit-exact reference parity.  Needs
+  the optional ``tiktoken`` package with its cl100k_base file already in
+  its local cache; a missing package or file raises instead of silently
+  switching encoders.
 
 Chunk ids ``{run_uuid}_{batch}_{i}`` therefore match the reference run
 wherever counts agree, which is what source-chunk attribution keys on.
@@ -78,18 +80,20 @@ def _virtual_tokens(text: str) -> List[Tuple[int, int]]:
 class TokenTextSplitter:
     """Drop-in for the reference's splitter (token windows with overlap)."""
 
-    def __init__(self, chunk_size: int = 296, chunk_overlap: int = 16):
+    def __init__(self, chunk_size: int = 296, chunk_overlap: int = 16,
+                 encoder: str = "estimator"):
         if chunk_overlap >= chunk_size:
             raise ValueError("chunk_overlap must be < chunk_size")
+        if encoder not in ("estimator", "tiktoken"):
+            raise ValueError(f"token encoder must be estimator|tiktoken, "
+                             f"got {encoder!r}")
         self.chunk_size = chunk_size
         self.chunk_overlap = chunk_overlap
         self._tiktoken = None
-        try:  # pragma: no cover - tiktoken absent in this environment
+        if encoder == "tiktoken":  # pragma: no cover - optional dependency
             import tiktoken
 
             self._tiktoken = tiktoken.get_encoding("cl100k_base")
-        except Exception:
-            pass
         if not TokenTextSplitter._encoder_logged:
             TokenTextSplitter._encoder_logged = True
             logger.info(
@@ -149,10 +153,11 @@ class TokenTextSplitter:
 
 
 def make_splitter(kind: str, chunk_size: int, chunk_overlap: int,
-                  word_splitter=None):
-    """``kind``: 'token' (reference-parity) or 'word' (round-1 fallback)."""
+                  word_splitter=None, encoder: str = "estimator"):
+    """``kind``: 'token' (reference-parity) or 'word' (round-1 fallback);
+    ``encoder`` picks the token encoder of the 'token' splitter."""
     if kind == "token":
-        return TokenTextSplitter(chunk_size, chunk_overlap)
+        return TokenTextSplitter(chunk_size, chunk_overlap, encoder)
 
     class _WordSplitter:
         def split_text(self, text: str) -> List[str]:

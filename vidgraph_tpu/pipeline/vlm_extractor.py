@@ -8,7 +8,7 @@ src/pipeline/vlm_extractor.py:66-91):
 
 The compute path is redesigned: chunks are decoded with one seek per chunk
 and captioned by the configured VLM backend (on-device ViT+captioner by
-default; HTTP or deterministic-local otherwise).  With the TPU backend,
+default; HTTP or deterministic-local otherwise).  With the in-process backend,
 decode of chunk N+1 overlaps captioning of chunk N via a thread-pool
 prefetch (double buffering across the host/device boundary).
 """

@@ -4,7 +4,7 @@ Every call site that hit an OpenAI-compatible embeddings endpoint in the
 reference (reference: src/components/neo4j_handler.py:27-31,
 src/components/pre_llm_injector.py:207-221,
 src/pipeline/retriever_hybrid.py:41-47) goes through this interface; the
-default backend computes embeddings in-process on the TPU (batched hashed
+default backend computes embeddings in-process on the device (batched hashed
 n-gram projection or transformer), so the N+1 HTTP pattern of the
 reference's post-compression disappears.
 """
@@ -15,6 +15,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..core.config import IN_PROCESS
 from ..core.logger import get_logger
 
 logger = get_logger("embed_client")
@@ -82,7 +83,7 @@ class HttpEmbedClient(EmbedClient):
 def make_embed_client(kind: str, dim: int = 512, endpoint: str = "",
                       model: str = "", api_key: str = "",
                       checkpoint_path: str = "") -> EmbedClient:
-    if kind in ("tpu", "hash"):
+    if kind in (IN_PROCESS, "hash"):
         return TPUEmbedClient("hash", dim=dim)
     if kind in ("transformer", "hybrid"):
         kw = {}

@@ -13,6 +13,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..core.config import IN_PROCESS
 from ..core.logger import get_logger
 
 logger = get_logger("rerank_client")
@@ -109,7 +110,7 @@ def make_rerank_client(kind: str, embed_client=None, endpoint: str = "",
                        model: str = "", api_key: str = "",
                        checkpoint_path: str = "",
                        ) -> Optional[RerankClient]:
-    if kind == "tpu":
+    if kind == IN_PROCESS:
         if embed_client is None:
             raise ValueError("tpu reranker needs an embed client")
         return TPURerankClient(embed_client)

@@ -2,7 +2,7 @@
 
 This is the capability the reference lacked entirely (its extractor was a
 strictly serial offline loop — reference: src/pipeline/vlm_extractor.py:44)
-and the north-star target: sustain 8 concurrent 30 fps streams on a v5e-8
+and the north-star target: sustain 8 concurrent 30 fps streams on one host
 with online retrieval p50 < 100 ms.
 
 Architecture:

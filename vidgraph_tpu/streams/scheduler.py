@@ -1,7 +1,7 @@
 """Continuous batching for in-process model serving.
 
 The reference's model calls were one HTTP round trip per request; here the
-models live in-process on the TPU, so concurrent callers (8 live streams,
+models live in-process on the device, so concurrent callers (8 live streams,
 scheduled retrievals, the KG pipeline) should share device dispatches.
 ``ContinuousBatcher`` coalesces concurrent requests into single batched
 calls: a request waits at most ``max_wait_ms`` for co-riders, batches are
